@@ -2,7 +2,7 @@
 
 Runs the flagship QC (1008,504) code through min-sum (flooding + layered),
 sum-product BP, and SM-NGDBF at each SNR point and prints a BER/FER/avg-
-iteration table.  Works on CPU or TPU (first compile per decoder is slow).
+iteration table.  Works on CPU or GPU (first compile per decoder is slow).
 
     python examples/compare_decoders.py --snr 2.0:3.0:0.5 --frames 4096
 """

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..codes.gf import gf_bits
 
@@ -43,9 +42,11 @@ def symbol_priors(y_bits: jax.Array, n0, q: int) -> jax.Array:
     # log P(bit=0) = -softplus(-llr); log P(bit=1) = -softplus(llr)
     logp0 = -jax.nn.softplus(-llr)
     logp1 = -jax.nn.softplus(llr)
-    patt = jnp.asarray(gf_bits(q))  # [q, m]
-    # log prior of symbol a = sum over bits of the matching bit posterior
-    logp = jnp.einsum("...nm,qm->...nq", logp1, patt.astype(llr.dtype)) + (
-        jnp.einsum("...nm,qm->...nq", logp0, (1 - patt).astype(llr.dtype))
+    patt = jnp.asarray(gf_bits(q), bool)  # [q, m]
+    # log prior of symbol a = sum over its m bits of the matching bit
+    # posterior: a select and a sum, not a dot, so every backend computes
+    # it in full f32 (a GPU may run an f32 dot in TF32)
+    logp = jnp.sum(
+        jnp.where(patt, logp1[..., None, :], logp0[..., None, :]), axis=-1
     )
     return jax.nn.softmax(logp, axis=-1)

@@ -14,6 +14,8 @@ Constructions provided:
     edge interleaver), cheap for very large N.
   * :func:`qc_expand` — quasi-cyclic expansion of a base/prototype matrix of
     circulant shifts (IEEE 802.11n/802.3an-style codes).
+  * :func:`rs_ldpc` — the Reed-Solomon-based construction behind 802.3an
+    (Djurdjevic et al.): contiguous row strata of permutation blocks.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "peg",
     "random_regular",
     "qc_expand",
+    "rs_ldpc",
     "make_regular_code",
     "nb_regular",
 ]
@@ -168,6 +171,49 @@ def random_regular(n: int, m: int, dv: int, seed: int = 0) -> Alist:
         nlist[v].sort()
     for c in range(m):
         mlist[c].sort()
+    return Alist(n=n, m=m, nlist=nlist, mlist=mlist)
+
+
+#: primitive polynomials of GF(2^k); bit i is the coefficient of x^i
+_PRIMITIVE_POLY = {2: 0b111, 3: 0b1011, 4: 0b10011, 5: 0b100101,
+                   6: 0b1000011, 7: 0b10001001, 8: 0b100011101}
+
+
+def rs_ldpc(field_bits: int = 6, slopes: int = 32, strata: int = 6) -> Alist:
+    """Reed-Solomon-based LDPC code, the construction behind 802.3an
+    (Djurdjevic, Xu, Abdel-Ghaffar, Lin 2003).
+
+    Over GF(h), h = 2**field_bits, the column of slope a < ``slopes`` and
+    intercept b has its stratum-i edge at row ``i*h + (a*x_i + b)`` with
+    x_i = alpha**i.  Each stratum is a contiguous block of h rows holding
+    one edge of every column, and two columns share at most one row
+    (girth >= 6): dv = ``strata``, dc = ``slopes``.  The defaults give the
+    (2048, 384) dv=6 dc=32 layout of the 802.3an H.
+    """
+    h = 1 << field_bits
+    if field_bits not in _PRIMITIVE_POLY or slopes > h or strata >= h:
+        raise ValueError(f"need field_bits in {sorted(_PRIMITIVE_POLY)}, "
+                         f"slopes <= {h}, strata < {h}")
+    exp = np.zeros(h - 1, np.int64)
+    log = np.zeros(h, np.int64)
+    v = 1
+    for i in range(h - 1):
+        exp[i], log[v] = v, i
+        v <<= 1
+        if v & h:
+            v ^= _PRIMITIVE_POLY[field_bits]
+    n, m = slopes * h, strata * h
+    b = np.arange(h)
+    nlist: List[List[int]] = [[] for _ in range(n)]
+    mlist: List[List[int]] = [[] for _ in range(m)]
+    for a in range(slopes):
+        for i in range(strata):  # a * alpha**i in GF(h)
+            ax = 0 if a == 0 else int(exp[(log[a] + i) % (h - 1)])
+            for bb, r in zip(b, i * h + (ax ^ b)):
+                nlist[a * h + int(bb)].append(int(r))
+                mlist[int(r)].append(a * h + int(bb))
+    for r in range(m):
+        mlist[r].sort()
     return Alist(n=n, m=m, nlist=nlist, mlist=mlist)
 
 

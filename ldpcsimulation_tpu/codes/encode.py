@@ -5,8 +5,8 @@ The reference relies on MacKay/Neal's offline tools (``.pchk``/``.gen`` files,
 ``cm_inversion`` GF(2) LU inversion (``C_implementations/src/r.cpp``,
 ``inc/r.h:88-176``) to produce the pre-encoded ``data.enc`` codeword
 fixtures.  This module is the native equivalent: reduce H over GF(2), build a
-systematic encoder, and batch-encode random information words on device (the
-mod-2 matmul maps to the MXU).
+systematic encoder, and batch-encode random information words on device (an
+int32 matrix product reduced mod 2).
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ class Encoder:
     def encode(self, info: jax.Array) -> jax.Array:
         """info: [..., k] bits -> codeword [..., n] bits (uint8)."""
         info = jnp.asarray(info, jnp.uint8)
-        # mod-2 matmul; accumulate in int32 (MXU) then reduce mod 2
+        # mod-2 matmul; accumulate in int32 (exact) then reduce mod 2
         parity = (
             jnp.matmul(
                 info.astype(jnp.int32),

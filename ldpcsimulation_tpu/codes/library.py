@@ -46,9 +46,9 @@ def load_named_qc(name: str):
     from .qc import qc_peg
 
     if name == "qc_1008_504":
-        # z=84 (6x12 base): ~12% faster than z=42 on v5e (better sublane
-        # utilization, fewer/fatter blocks); BER measured equal at 2.0 and
-        # 2.4 dB (2.396e-2 vs 2.388e-2; 4.90e-3 vs 5.05e-3, 66M bits each)
+        # z=84 (6x12 base): fewer, larger blocks than z=42; BER measured
+        # equal at 2.0 and 2.4 dB (2.396e-2 vs 2.388e-2; 4.90e-3 vs
+        # 5.05e-3, 66M bits each).  It defines the flagship configuration.
         return qc_peg(12, 6, 3, z=84, seed=1)
     if name == "wifi_like_1944_972":
         from .qc import qc_ira

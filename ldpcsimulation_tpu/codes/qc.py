@@ -5,10 +5,10 @@ each block either zero or a cyclic shift of the identity.  For such codes
 the VN↔CN edge permutation decomposes into *per-block cyclic rotations with
 compile-time-constant offsets*: messages stored as [block, z, B] planes move
 between VN-grouping and CN-grouping with static rolls — no dynamic gathers.
-On TPU, an arbitrary-row gather runs at a small fraction of memory bandwidth
-(measured ~256 GB/s effective on v5e for the (1008,504) edge arrays), while
-static rolls compile to plain vector copies; QC structure is therefore the
-difference between gather-bound and compute-bound decoding.
+A static roll compiles to two contiguous copies, while an arbitrary-row
+gather reads through an index array; whether that difference decides the
+decode time on a given device is a measurement, not a property of the
+code.
 
 The slot orders used here (base-edges sorted by base-row within a column,
 by base-column within a row) coincide exactly with the alist file order of
@@ -18,7 +18,7 @@ equivalence is asserted in tests.
 
 The reference has no QC machinery (its codes are stored as flat alists, and
 802.3an/802.11n/DVB-S2 are QC or RS-structured codes it treats as
-unstructured); this module is TPU-native design, not a port.
+unstructured); this module is new design, not a port.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Auto-detect quasi-cyclic structure in loaded parity-check matrices.
 
 The reference stores every code as a flat alist even when the underlying
-standard is block-circulant (802.11n, 802.16e; SURVEY §2.5).  On TPU the
-difference is decisive: QC codes route to the gather-free roll decoders
-(:mod:`..decoders.minsum_qc` etc.), which run several times faster than
-the generic gather path (docs/PERF.md).  This module recovers the
+standard is block-circulant (802.11n, 802.16e; SURVEY §2.5).  QC codes
+route to the gather-free roll decoders (:mod:`..decoders.minsum_qc`
+etc.) instead of the generic gather path.  This module recovers the
 structure from the expanded H:
 
   * candidate expansion factors z: divisors of gcd(n, m), largest first;

@@ -1,4 +1,4 @@
-"""Stratified block-permutation structure: MXU one-hot interleavers.
+"""Stratified block-permutation structure: one-hot matmul interleavers.
 
 Some reference codes are neither circulant nor QC-relabelable but still
 highly structured: the 802.3an RS-LDPC ``802_3_H.alist`` (2048 cols, 384
@@ -6,8 +6,8 @@ rows) has *row strata* — every column has exactly one edge in each
 contiguous 64-row block (`C_implementations/codes/802_3/802_3_H.alist`;
 the RS construction disperses each code symbol over a 64-row stratum).
 Its 64x64 blocks are NOT single circulants (``qc_detect`` correctly
-rejects them), so message passing on this H previously took the generic
-gather path (~256 GB/s effective on v5e, docs/PERF.md).
+rejects them), so message passing on this H otherwise takes the generic
+gather path.
 
 This module exploits the weaker structure that *does* hold:
 
@@ -22,13 +22,13 @@ Within one (stratum, group) pair the edges then form a partial
 permutation: each group column touches at most one stratum row and each
 stratum row at most one group column.  The VN->CN interleaver therefore
 factors into ``mb * kg`` static partial-permutation matrices, applied as
-ONE batched one-hot einsum riding the MXU.  Because every output is a
+ONE batched one-hot einsum (a matrix product).  Because every output is a
 single-term sum (one 1.0 per one-hot row), the matmul moves f16/f32
 message payloads *exactly* under ``Precision.HIGHEST`` — verified by the
 bit-exact equivalence tests against the generic decoder.  No dynamic
 gathers remain on the iteration path.
 
-This is TPU-native design with no reference analog (the reference treats
+This design has no reference analog (the reference treats
 802.3an as an unstructured alist and pays the ``find()`` scan per edge,
 ``decodeMinSum.cpp:527-536``).
 """
@@ -121,9 +121,10 @@ def _contiguous_strata(alist: Alist) -> Optional[List[List[int]]]:
 
     Only *dense* strata qualify (mb <= 2*dv_max): every m has the
     degenerate h=1 solution (48 one-row strata for a (96,48) code), whose
-    near-empty slot grid is both wasteful (cost ~dc/2) and a shape class
-    the TPU compiler handles badly (h=1 einsums reproducibly SIGSEGV the
-    remote compile helper).  Sparse cases fall back to greedy coloring."""
+    near-empty slot grid is wasteful (cost ~dc/2).  Historically h=1
+    einsums also crashed the compiler of the first target device; the
+    rule stays because of the cost.  Sparse cases fall back to greedy
+    coloring."""
     m = alist.m
     dv_max = alist.dv_max
     for h in sorted((d for d in range(1, m + 1) if m % d == 0), reverse=True):

@@ -5,7 +5,7 @@ Layout convention
 All decoders are *batched over frames with the batch on the last axis*:
 channel samples enter as ``[B, N]`` (user-facing) and are transposed to
 ``[N, B]`` internally, so that every Tanner-graph gather moves contiguous
-TPU lane vectors (B rides the 128-wide lane dimension).  Messages live in
+batch vectors (B is the last, contiguous dimension).  Messages live in
 flat padded slot arrays:
 
   * v2c (variable→check) : ``[N * dv_max, B]`` in VN-slot order
@@ -257,7 +257,7 @@ def run_flooding_soft(
     independent along the batch, so the message state of a satisfied frame
     may keep evolving — its latched ``d`` is what the decoder returns —
     and NOT masking the message leaf saves a full message-state read+write
-    per iteration (~25% of the BP ET iteration time on v5e).
+    per iteration.
 
     Returns (d int32 in total's layout, iterations [B] i32, done [B] bool).
     """

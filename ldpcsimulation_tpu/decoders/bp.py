@@ -23,8 +23,7 @@ positive — no cancellation) gives the exact product magnitude as
 phi-domain form ``phi(Σ phi(|m|))`` with ``phi(x) = -log(tanh(x/2))`` but
 costs ONE transcendental per input edge (exp) and ONE per output edge
 (log) instead of two phi chains (expm1+div+log1p each) — about half the
-VPU work of the phi form, which dominated BP's iteration time on v5e
-(docs/DESIGN.md).  Stability envelope is the same as phi: with messages
+elementwise work of the phi form.  Stability envelope is the same as phi: with messages
 clamped to ±MAXLLR, ``u ∈ [e^-20, 1]`` and every pair term stays normal in
 float32; a zero input message (u = 1) forces the other outputs of the
 check to exactly 0 and drops out of its own exclusion.
@@ -148,7 +147,7 @@ def decode_bp(
     message array; CN/VN arithmetic stays float32.  Messages are clamped
     to ±MAXLLR, so the only loss is the f16 rounding of the stored
     extrinsics (~1e-2 absolute at |m|≈20) — measured BER-neutral at the
-    2 dB operating point (docs/PERF.md).
+    2 dB operating point (0.0014767 vs 0.0014775 over 6.6e7 bits).
     """
     # Input clamp (decodeBP.cpp:188-191): without it, |llr| ≳ 89 makes
     # u = e^-|m| underflow to exactly 0 in f32, a later log(s/0) = inf

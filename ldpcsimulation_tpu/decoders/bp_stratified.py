@@ -2,7 +2,7 @@
 
 Same arithmetic as :mod:`.bp` (hyperbolic-pair CN update with exact
 extrinsic exclusion, ±MAXLLR VN clamp, ``decodeBP.cpp:353-409`` semantics)
-with the VN<->CN edge movement on the MXU one-hot interleaver of
+with the VN<->CN edge movement on the one-hot matmul interleaver of
 :mod:`..codes.stratified` — the universal fallback for unstructured
 matrices that fail QC detection but admit a cheap row-coloring (the
 ``find()`` scan this retires: ``decodeMinSum.cpp:527-536``).

@@ -1,4 +1,4 @@
-"""Dense-matmul graph operations for the bit-flip family (MXU fast path).
+"""Dense-matmul graph operations for the bit-flip family.
 
 The GDBF/NGDBF decoders touch the Tanner graph in exactly two places — the
 syndrome per check and the per-variable sum of neighboring syndromes — and
@@ -7,18 +7,18 @@ both are linear in the graph's incidence matrix:
   * syndrome parity  = (H @ bits) mod 2            (bits ∈ {0,1})
   * neighbor sums    = Hᵀ @ syn                    (syn per check)
 
-On TPU the generic path's dynamic row gathers run far below HBM bandwidth,
-and many reference codes (the 802.3an RS-LDPC above all) have no circulant
-structure the roll path (:mod:`.qc_ops`) could exploit.  But a *dense* H of
-2048×384 is only 1.5 MB in bf16 — the two ops become plain matmuls that the
-MXU executes orders of magnitude faster than the gather bound.  The
+Many reference codes (the 802.3an RS-LDPC above all) have no circulant
+structure the roll path (:mod:`.qc_ops`) could exploit, which leaves the
+generic path's dynamic row gathers.  But a *dense* H of 2048×384 is only
+1.5 MB in bf16 — the two ops become plain matrix products with bf16
+operands and f32 accumulation, which a GPU's tensor cores run.  The
 arithmetic is exact: operands are 0/±1 (exact in bf16) and every
 accumulation is an integer ≤ dc_max/dv_max ≪ 2²⁴, accumulated in f32 by
 ``preferred_element_type``.  Outputs are therefore bit-identical to the
 generic implementations.
 
 Use :meth:`DenseGraph.from_code` for any code where ``n*m`` entries fit
-comfortably in HBM (see :func:`dense_worthwhile`); the DVB-S2 64800-bit
+comfortably in device memory (see :func:`dense_worthwhile`); the DVB-S2 64800-bit
 class is past the threshold and keeps the gather/QC paths.
 """
 
@@ -42,7 +42,7 @@ __all__ = [
 ]
 
 # n*m above this many entries, the dense H (bf16) stops paying for itself
-# (memory traffic of the operand matrix plus MXU time grow linearly while
+# (memory traffic of the operand matrix plus matmul time grow linearly while
 # the gather path's cost is fixed per edge).  64M entries = 128 MB bf16.
 DENSE_MAX_ENTRIES = 64 * 1024 * 1024
 
@@ -51,7 +51,7 @@ DENSE_MAX_ENTRIES = 64 * 1024 * 1024
 class DenseGraph:
     """Dense incidence-matrix companion to :class:`Code` (same H).
 
-    A JAX pytree: ``h`` is the [M, N] 0/1 matrix in bf16 (MXU-native), and
+    A JAX pytree: ``h`` is the [M, N] 0/1 matrix in bf16 (exact), and
     ``vn_deg_f`` the [N] per-variable degrees as f32 (for satisfied-count
     complements).  Construction is one-time host work via
     :meth:`from_code`.

@@ -269,9 +269,9 @@ def decode_gdbf(
     on-the-fly draw, bypassing uniform/shaping transforms.
     qc: optional QC structure of the SAME code — switches the two graph
     operations (syndrome, per-VN syndrome sum) to static rolls
-    (bit-identical, much faster on TPU for large codes).
+    (bit-identical, no dynamic gathers).
     dense: optional :class:`.dense_ops.DenseGraph` of the SAME code —
-    switches the two graph operations to MXU matmuls (bit-identical; the
+    switches the two graph operations to matmuls (bit-identical; the
     fast path for unstructured codes like the 802.3an RS-LDPC where no
     circulant structure exists).  Ignored when ``qc`` is given.
     stoch_uniforms: optional [max_phases*T, N, B] pre-drawn uniform(0,1)

@@ -5,8 +5,8 @@ all checks, then all variables — e.g. ``decodeMinSum.cpp:247-263``).  A
 layered (serial-C) schedule propagates information within an iteration and
 typically halves the iteration count at equal BER; the BASELINE config list
 includes a "layered vs flooding schedule comparison" on an 802.11n-class QC
-code, so layered decoding is a first-class framework feature (TPU-native
-design, no reference counterpart).
+code, so layered decoding is a first-class framework feature (no
+reference counterpart).
 
 Semantics (standard row-layered min-sum):
   * State: posterior LLRs ``q[N]`` (init = channel samples) and stored
@@ -201,8 +201,7 @@ def decode_minsum_layered_qc(
     # TUPLES of per-block arrays, not stacked buffers: a layer update then
     # rebinds only the [z, B] blocks it touches (pure SSA values), where a
     # stacked q with 90 interleaved `.at[bj].set`s made XLA materialize
-    # full-posterior copies — measured 170 ms/iteration on DVB-S2 at
-    # B=2048, ~26x the actual per-layer traffic (docs/PERF.md).
+    # full-posterior copies, ~26x the actual per-layer traffic on DVB-S2.
     q0 = tuple(y_t.reshape(qc.nb, z, b))
     # stored messages per layer: [dc_bi, z, B] (exact row degree, no pad);
     # vma-typed from the input so the early-termination while_loop carry

@@ -4,9 +4,7 @@ Same arithmetic, slot order, and tie-breaking as :mod:`.minsum` (bit-exact
 equivalence is tested), but the VN↔CN permutation is done with per-block
 cyclic rolls whose offsets are compile-time constants (see
 :mod:`..codes.qc`).  XLA lowers a static-shift roll to two contiguous
-copies, so the decoder contains no dynamic gathers at all — on TPU v5e this
-moves min-sum from gather-bound (~0.84 ms per iteration at B=8192 on the
-(1008,504) code) to VPU-bound.
+copies, so the decoder contains no dynamic gathers at all.
 
 Message layout (``qc_ragged_init``): base-column planes of z×B circulant
 rows, batch in lanes — the stacked ``[Nb, dv_max, z, B]`` array for
@@ -240,8 +238,7 @@ def qc_cn_minsum_slots(qc: QCCode, v2c, variant="plain", alpha=1.0,
     Returning the unstacked list lets the VN update consume the c2v values
     as fused expressions — XLA CSEs the shared slot between the total sum
     and the extrinsic subtraction, so the stacked ``[Nb, dv_max, z, B]``
-    c2v buffer is never materialized in HBM (measured ~12% of the flagship
-    iteration time on v5e).
+    c2v buffer is never materialized in device memory.
 
     v2c: [Nb, dv_max, z, B].  Identical scan semantics to minsum_cn_update
     (<= last-min-wins).
@@ -250,7 +247,7 @@ def qc_cn_minsum_slots(qc: QCCode, v2c, variant="plain", alpha=1.0,
     messages (float ordering is monotone in the integer bit pattern for
     same-sign finite values, signs combine as XOR of sign bits) — the
     same selects/compares as the float scan bit for bit, candidate for
-    cheaper VPU issue (see :func:`_cn_scan_int`).  Plain variant only;
+    cheaper integer issue (see :func:`_cn_scan_int`).  Plain variant only;
     requires -0.0-free inputs (``storage_cast`` canonicalizes).
 
     ``v2c`` may be the stacked ``[Nb, dv_max, z, B]`` array or the

@@ -3,9 +3,8 @@
 Same arithmetic and tie-breaking as :mod:`.minsum` (bit-exact equivalence
 is tested on the reference's real ``802_3_H.alist``), but the VN<->CN edge
 permutation is ``mb*kg`` static partial permutations applied as one batched
-one-hot einsum on the MXU (see :mod:`..codes.stratified`) — no dynamic
-gathers on the iteration path, unlike the generic slot-array decoder whose
-gathers cap it at a fraction of HBM bandwidth (docs/PERF.md).
+one-hot einsum (see :mod:`..codes.stratified`) — no dynamic gathers on
+the iteration path, unlike the generic slot-array decoder.
 
 Two semantic notes versus the sequential-scan CN update of
 ``minsum_cn_update`` (`decodeMinSum.cpp:410-450`):
@@ -27,7 +26,8 @@ Two semantic notes versus the sequential-scan CN update of
 
 One-hot matmuls are exact for the payloads used here: each output is a
 single-term sum (one 1.0 per row of the one-hot), and
-``Precision.HIGHEST`` keeps f32 operands intact on the MXU.
+``Precision.HIGHEST`` keeps f32 operands intact (a GPU would otherwise
+run an f32 dot in TF32, which rounds the payloads).
 """
 
 from __future__ import annotations

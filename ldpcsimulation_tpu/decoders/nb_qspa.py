@@ -69,10 +69,10 @@ def _gf2m_wht(x):
     Diagonalizes XOR-convolution: WHT(a ⊛ b) = WHT(a)·WHT(b) where
     (a ⊛ b)[k] = Σ_{i⊕j=k} a[i]b[j].  Self-inverse up to a factor q.
 
-    A dense ±1 Sylvester-matrix matmul form (``x @ H_q``, MXU) was
-    measured SLOWER on the v5e (62 vs 36 ms on the GF(64) PERF row): at
-    HIGHEST precision the f32 K=64 matmul underutilizes the MXU, and XLA
-    fuses the butterfly stages well.  Keep the butterflies.
+    The butterflies are exact in f32 and fuse into elementwise chains; a
+    dense ±1 Sylvester-matrix product (``x @ H_q``) would need HIGHEST
+    precision to stay exact, and which form is faster on a given device
+    is a measurement.
     """
     q = x.shape[-1]
     m = q.bit_length() - 1
@@ -104,7 +104,7 @@ def wht(x: jax.Array, axis: int = -1) -> jax.Array:
 #
 # so both sides become ONE fused elementwise pass: a q-term multiply-add
 # unroll against constant [q, q, q] sign tables indexed by the (traced)
-# per-slot coefficient — no gather, no transposes, q² VPU mul-adds per
+# per-slot coefficient — no gather, no transposes, q² mul-adds per
 # lane element.  That is a win only while q² is small; for large q the
 # butterfly's q·log q beats it, so the decoder gates on q ≤ _FUSED_QMAX
 # (GF(64) measured faster on the butterfly path, see _gf2m_wht docstring).

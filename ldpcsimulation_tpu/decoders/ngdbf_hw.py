@@ -224,8 +224,8 @@ def decode_ngdbf_hw(
     default).  qpointer0: [B] initial ring offsets (0 if None).
     ring_noise: optional [ring_len, B] pre-drawn raw noise samples
     (σ·noiseScale·n) for replay/cross-validation; overrides the key draw.
-    dense: optional :class:`.dense_ops.DenseGraph` of the SAME code — MXU
-    matmul graph ops (bit-identical; the fast path for the real 802.3an H,
+    dense: optional :class:`.dense_ops.DenseGraph` of the SAME code —
+    matmul graph ops (bit-identical; the path for the real 802.3an H,
     which has no circulant structure).
     qc: optional :class:`..codes.qc.QCCode` structure of the SAME code —
     static-roll graph ops (bit-identical; the fast path for QC codes too

@@ -3,8 +3,8 @@
 The GDBF/NGDBF decoders touch the Tanner graph in exactly two places: the
 bipolar syndrome per check and the per-variable sum of neighboring
 syndromes.  Both are dynamic gathers in the generic path; for QC codes they
-become static per-block rolls (see codes/qc.py for why that matters on
-TPU).  Outputs are bit-identical to the generic implementations — products
+become static per-block rolls (see codes/qc.py).  Outputs are
+bit-identical to the generic implementations — products
 and sums of the same operands in a different static order.
 """
 

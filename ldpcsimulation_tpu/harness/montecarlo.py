@@ -1,6 +1,6 @@
 """Batched Monte-Carlo BER/FER test harness.
 
-This is the TPU-native re-expression of the per-frame ``main()`` loop every
+This is the batched re-expression of the per-frame ``main()`` loop every
 reference simulator carries (e.g. ``C_implementations/src/decodeBP.cpp:56-277``):
 frame generation, AWGN, decode, error counting, adaptive stopping, statistics,
 incremental console reports.  Differences by design (SURVEY §7):
@@ -36,8 +36,22 @@ __all__ = [
     "StopRule",
     "default_min_word_errors",
     "MCStats",
+    "draw_channel",
     "simulate",
 ]
+
+
+def draw_channel(key, bits, sigma, awgn_form="multiplicative",
+                 dtype=jnp.float32):
+    """One batch's channel as :func:`simulate` draws it: (y [B, N],
+    decoder key), with ``kch, kdec = split(key)``.
+
+    Replay must run this compiled, as simulate() does: a compiled program
+    fuses ``1 + sigma * n`` into one FMA where op-by-op evaluation rounds
+    twice, so the two differ in the last bit."""
+    kch, kdec = jax.random.split(key)
+    x = bpsk(bits).astype(dtype)  # [B, N] bipolar
+    return awgn(kch, x, sigma, form=awgn_form, dtype=dtype), kdec
 
 
 def default_min_word_errors(n: int) -> int:
@@ -232,9 +246,8 @@ def simulate(
 
     @jax.jit
     def batch_step(key, bits, carry):
-        kch, kdec = jax.random.split(key)
-        x = bpsk(bits).astype(dtype)  # [B, N] bipolar
-        y = awgn(kch, x, sigma, form=awgn_form, dtype=dtype)
+        y, kdec = draw_channel(key, bits, sigma, awgn_form, dtype)
+        x = bpsk(bits).astype(dtype)
         r = jnp.where(y > 0, 1, -1).astype(jnp.int32)
         c = x.astype(jnp.int32)
         inp = preprocess(y) if preprocess is not None else y

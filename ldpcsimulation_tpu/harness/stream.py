@@ -4,8 +4,7 @@ The batched masked ``lax.while_loop`` ET driver
 (:func:`..decoders.base.run_flooding_soft`) pays a *straggler tax*: the whole
 batch iterates until its slowest frame converges, so at 2 dB the flagship
 geometry executes ~28 iterations per lane against a 10.4 average — roughly
-half the wall-clock decodes already-satisfied frames (docs/PERF.md, BP ET
-124.2 vs fixed-T 252.0 Mbit/s).
+half the iterations decode already-satisfied frames.
 
 This driver removes the tax by keeping a persistent ``lanes``-wide decode
 state on device.  Every ``refill_every`` iterations, lanes whose frame has
@@ -515,7 +514,7 @@ def make_stream_call(
     channels stay pure functions of (seed, gid) — replayable), and the
     counters/histograms psum into replicated outputs.  This is the
     streaming replacement for the reference's per-process fan-out
-    (SURVEY §2.6): one program, N devices, collectives over ICI.  In
+    (SURVEY §2.6): one program, N devices, collectives between them.  In
     record mode rec leaves concatenate per device with a ``rc_local``
     leaf giving each device's valid count.  Drain semantics are per
     device (``ptr0`` = the LOCAL pool length).
@@ -792,11 +791,10 @@ def mesh_setup(mesh, data_axis, lanes, pool_frames, default_pool, state):
 
 #: Default channel-pool byte budget (per simulate_stream* driver call).
 #: Sized so the deep-FER geometries (lanes 16k, avg ~3 iterations) keep
-#: long on-device calls (measured: a 256 MiB budget shrank the 4.4 dB
-#: BP run's calls to 20 iterations and cost ~1/3 of its throughput;
-#: 1 GiB sustains ~90-iteration calls at ~95% of the unbudgeted rate)
-#: while fitting comfortably next to the lane state in the v5e's 16 GB
-#: HBM; override per run with ``pool_bytes=``.
+#: long on-device calls: a smaller budget shrinks each call's iteration
+#: count, and every call boundary costs a host round trip.  It was tuned
+#: on the first target device (16 GB); re-tuning it for this one is open.
+#: Override per run with ``pool_bytes=``.
 DEFAULT_POOL_BYTES = 2**30
 
 
@@ -897,7 +895,10 @@ def build_channel_pool(
     codeword, for which the reference's multiplicative and additive AWGN
     forms coincide (x = +1: ``x*(1+σn) == x+σn``, decodeBP.cpp:184 /
     LDPC_testbench.h:144-149).  ``preprocess`` maps raw samples to decoder
-    input (LLR / quantizer), as in :func:`.montecarlo.simulate`.
+    input (LLR / quantizer), as in :func:`.montecarlo.simulate`.  The
+    drivers run it compiled; replay a window the same way (``jax.jit``),
+    since op-by-op evaluation rounds ``1 + sigma * n`` twice where the
+    compiled program fuses it into one FMA.
 
     Returns (rows, uncoded [F] int32, sat0 [F] bool).  ``sat0`` is the
     iteration-0 syndrome of each frame, precomputed once here so lane

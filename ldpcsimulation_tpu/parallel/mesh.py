@@ -4,7 +4,7 @@ The reference's entire parallelism story is bash `nohup … &` fan-out: one OS
 process per (SNR × parameter) operating point with time-seeded RNGs, merged
 by appending to shared log files (SURVEY §2.6;
 ``C_implementations/scripts/bp_example_PEGReg504x1008.sh:24-28``).  The
-TPU-native replacement is a 2-D device mesh:
+replacement here is a 2-D device mesh:
 
   * axis ``"snr"`` — the operating-point axis.  Each slot runs one point of
     the experiment grid: an (SNR, decoder-parameter…) tuple.  The point's
@@ -18,13 +18,13 @@ TPU-native replacement is a 2-D device mesh:
 
 with per-device RNG streams derived by folding the device's mesh coordinates
 into the root key (replacing time-seeded processes), and error counters
-reduced with ``jax.lax.psum`` over ICI (replacing log-file merging).  The
+reduced with ``jax.lax.psum`` across devices (replacing log-file merging).  The
 stop rule is evaluated on the psum-reduced counters — one decision for all
 devices, replacing each process's local while-loop test.
 
 Multi-host: call :func:`init_distributed` first (wraps
 ``jax.distributed.initialize``); the same mesh code then spans all hosts'
-devices and the psums ride ICI/DCN.
+devices and the psums cross the hosts' interconnect.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def init_distributed(**kwargs) -> None:
 
     Pass the usual coordinator kwargs (``coordinator_address``,
     ``num_processes``, ``process_id``, ...) for an explicit cluster, or
-    nothing to let JAX auto-detect (TPU pod metadata / cluster env vars).
+    nothing to let JAX auto-detect (cluster environment variables).
     Idempotent: a second call on an already-initialized cluster is a no-op.
     Failures propagate — a cluster that cannot form is an error, not
     something to silently run single-host over.
@@ -107,7 +107,7 @@ def make_grid_step(
     The mesh "snr" axis is the operating-point axis: each slot receives its
     own sigma and its own value of every name in ``param_names`` as TRACED
     scalars, so the returned step is compiled once and re-invoked with any
-    assignment of grid points to slots (the TPU-native replacement for the
+    assignment of grid points to slots (the replacement for the
     reference's one-process-per-parameter-combination bash fan-out).
 
     decode_fn(samples [b, N], sigma_scalar, key, point) -> DecodeResult-like
@@ -182,7 +182,7 @@ def make_grid_step(
         su = getattr(res, "smoothing_used", None)
         if su is not None:
             counters["smoothing_used"] = jnp.sum(su.astype(jnp.int32))
-        # reduce over the Monte-Carlo data axis (ICI collective), then add a
+        # reduce over the Monte-Carlo data axis (a collective), then add a
         # leading singleton that shard_map stacks along the snr axis
         counters = jax.tree.map(
             lambda t: jax.lax.psum(t, axis_name="data")[None], counters

@@ -3,7 +3,7 @@
 NB counterpart of :mod:`.mesh`/:mod:`.montecarlo`: the (snr × data) mesh
 runs FFT-QSPA decoding of all-zero codewords with per-device RNG streams
 (fold-in of mesh coordinates) and psum-reduces symbol/bit/word error
-counters over ICI.  Replaces the reference's never-finished NB harness
+counters across devices.  Replaces the reference's never-finished NB harness
 (SystemC/NB-LDPC) at mesh scale.
 """
 

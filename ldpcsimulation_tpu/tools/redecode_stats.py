@@ -7,7 +7,7 @@ received frame NR times with fresh decoder noise, and log one row per frame
 weight of that attempt (``newstat.cpp:432-436``).  The older
 ``redecodeStatistics.cpp`` is the same without state files.
 
-TPU-native version: the channel realization of frame f is a pure function
+This version: the channel realization of frame f is a pure function
 of (seed, f), and the NR redecode attempts use keys folded from (seed, f,
 attempt) — no state files, and all NR attempts of a frame run as one
 batched decode.

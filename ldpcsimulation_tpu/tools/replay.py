@@ -28,10 +28,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..channel.awgn import awgn, bpsk
 from ..codes.code import Code
 from ..decoders.base import syndrome_from_hard
 from ..decoders.gdbf import GDBFConfig, decode_gdbf
+from ..harness.montecarlo import draw_channel
 
 __all__ = [
     "replay_channel",
@@ -117,15 +117,16 @@ def replay_channel(
     """Reproduce one frame's channel output exactly as simulate() drew it.
 
     Mirrors the key-folding scheme of harness.montecarlo.simulate: batch key
-    = fold_in(key(seed), batch_index); channel key = split()[0].
+    = fold_in(key(seed), batch_index); channel key = split()[0].  The draw
+    runs compiled, with sigma a constant, as in simulate()'s batch step
+    (:func:`..harness.montecarlo.draw_channel`), so the row is bit-exact.
     """
-    root = jax.random.key(seed)
-    key = jax.random.fold_in(root, batch_index)
-    kch, kdec = jax.random.split(key)
+    key = jax.random.fold_in(jax.random.key(seed), batch_index)
     if bits is None:
         bits = jnp.zeros((batch_size, code.n), jnp.uint8)
-    x = bpsk(bits).astype(jnp.float32)
-    y = awgn(kch, x, sigma, form=awgn_form)
+    y, kdec = jax.jit(draw_channel, static_argnums=(2, 3))(
+        key, bits, sigma, awgn_form
+    )
     return np.asarray(y[frame_index]), kdec
 
 

@@ -51,6 +51,7 @@ from ..harness import (
     simulate,
 )
 from ..harness.fixtures import load_codeword_file
+from ..runtime import device_summary, enable_compile_cache
 
 __all__ = ["main", "build_parser"]
 
@@ -133,8 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
              "tests/test_stream.py and test_stream_gdbf.py; GDBF decoder "
              "noise is keyed per (frame, step) instead of per (batch, "
              "step) — statistically identical, replayable by "
-             "coordinates), no straggler tax (~1.5-1.8x on the flagship "
-             "QC rows, docs/PERF.md).  All-zero codewords; "
+             "coordinates), no straggler tax.  All-zero codewords; "
              "lanes = --batch.",
     )
     p.add_argument(
@@ -204,6 +204,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
+    dev = device_summary()
+    print(
+        f"sweep: {dev['platform']} {dev['kind']} x{dev['count']}",
+        file=sys.stderr,
+    )
 
     qc = None
     strat = None
@@ -243,7 +249,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             if qc is None and args.decoder in (
                 "minsum", "offsetminsum", "normalizedminsum", "bp", "ddbmp"
             ) and args.schedule != "layered":
-                # Non-QC matrices get the stratified MXU one-hot
+                # Non-QC matrices get the stratified one-hot matmul
                 # interleaver instead of the gather path whenever the
                 # greedy row/column coloring is cheap enough (cost-gated
                 # in detect_stratified) — the universal unstructured
@@ -256,7 +262,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     print(
                         f"sweep: detected stratified structure "
                         f"({strat.mb}x{strat.h} strata, {strat.kg} column "
-                        "groups) — using MXU one-hot decoders",
+                        "groups) — using one-hot matmul decoders",
                         file=sys.stderr,
                     )
     else:
@@ -299,7 +305,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         max_frames=args.max_frames,
     )
 
-    # Unstructured codes (no QC fast path) get the dense MXU graph ops for
+    # Unstructured codes (no QC fast path) get the dense matmul graph ops for
     # the bit-flip decoders when H is small enough to pay off — this is how
     # the reference's own 802.3an RS-LDPC avoids the gather-bound path.
     dense = None
@@ -624,8 +630,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     code, cfg, snr, rate=rate, stop=stop,
                     lanes=args.batch,
                     # boundary cadence: retire checks cost a syndrome +
-                    # refill pass; at the family's large caps a coarse
-                    # cadence measured best (K=8 at T=100, docs/PERF.md)
+                    # refill pass, so the family's large caps take a
+                    # coarse cadence
                     refill_every=8 if T >= 64 else 2,
                     seed=args.seed, preprocess=pre, qc=qc, dense=dense,
                     pool_bytes=args.pool_bytes, verbose=args.verbose,

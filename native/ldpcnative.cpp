@@ -2,7 +2,7 @@
 //
 // The reference implements its code tooling in C/C++ (MacKay's alist loader
 // C_implementations/src/alist.cpp, Neal's generation utilities under
-// SystemC/NGDBF/codes/PegReg/).  This library is the TPU framework's native
+// SystemC/NGDBF/codes/PegReg/).  This library is the framework's native
 // tier for the same roles where Python is too slow at scale:
 //
 //   * peg_construct: Progressive-Edge-Growth Tanner-graph construction

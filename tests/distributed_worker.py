@@ -111,7 +111,7 @@ with open(f"{out_path}.grid{pid}", "w") as f:
     json.dump(gslots, f)
 
 # --- STREAMING harness over the multi-process cluster (VERDICT r4 item
-# 4: the coordinator/DCN path was stream-blind).  simulate_stream(mesh=
+# 4: the coordinator path was stream-blind).  simulate_stream(mesh=
 # global 1-D data mesh): lanes and the channel pool shard across ALL
 # processes' devices, counters arrive psum-replicated — every process
 # computes identical statistics, and the parent compares them bit-for-bit

@@ -133,6 +133,29 @@ def test_qc_expand():
     assert h[0:4, 8:12].sum() == 0
 
 
+@pytest.mark.parametrize("field_bits,slopes,strata", [(4, 8, 4), (5, 16, 5)])
+def test_rs_ldpc_802_3an_layout(field_bits, slopes, strata):
+    """Regular (strata, slopes), girth >= 6, contiguous row strata with
+    one edge of every column each, and the exact RS column groups found
+    by the stratified detector."""
+    from ldpcsimulation_tpu.codes.construct import rs_ldpc
+    from ldpcsimulation_tpu.codes.stratified import stratify
+
+    h = 1 << field_bits
+    a = rs_ldpc(field_bits, slopes, strata)
+    a.validate()
+    assert (a.n, a.m) == (slopes * h, strata * h)
+    assert a.dv == [strata] * a.n and a.dc == [slopes] * a.m
+    dense = a.to_dense()
+    gram = dense.T.astype(np.int64) @ dense
+    np.fill_diagonal(gram, 0)
+    assert gram.max() <= 1
+    for i in range(strata):
+        assert (dense[i * h:(i + 1) * h].sum(axis=0) == 1).all()
+    sc = stratify(a)
+    assert (sc.mb, sc.h, sc.kg, sc.w) == (strata, h, slopes, h)
+
+
 def test_make_regular_code():
     code = make_regular_code(96, 48, 3, seed=0)
     assert code.n == 96 and code.m == 48 and code.num_edges == 288

@@ -1,4 +1,4 @@
-"""Dense MXU graph ops: bit-exact equivalence with the generic gather path."""
+"""Dense matmul graph ops: bit-exact equivalence with the generic gather path."""
 
 import jax
 import jax.numpy as jnp

@@ -241,7 +241,7 @@ def test_fused_cn_matches_butterfly_and_f16(q, rng, monkeypatch):
     storage are DECISION-identical to the plain butterfly/f32 path on a
     noisy batch — symbols, iteration counts, and satisfied flags all match.
     Guards future edits to _wht_sign_tables/_class_combine/_signed_combine
-    off-TPU (advisor r3)."""
+    on any backend."""
     from ldpcsimulation_tpu.decoders import nb_qspa as nbq
 
     a = nb_regular(48, 24, 3, q=q, seed=4)
@@ -284,7 +284,7 @@ def test_fused_cn_matches_butterfly_and_f16(q, rng, monkeypatch):
         assert abs(got[1].mean() - ref[1].mean()) < 0.5, name
         assert (got[2] == ref[2]).mean() > 0.99, name
     # f16 storage vs f32: decisions may flip on near-ties only — the
-    # measured contract is SER-equivalence (docs/PERF.md), not bit equality
+    # measured contract is SER-equivalence, not bit equality
     sym_delta = (f16[0] != base[0]).mean()
     assert sym_delta < 0.01, f"f16 changed {sym_delta:.2%} of symbols"
     assert abs((f16[0] != 0).mean() - (base[0] != 0).mean()) < 0.01

@@ -106,8 +106,8 @@ def test_multiprocess_cluster_matches_single_process(
     form, the mesh must span all processes, and — because per-device RNG
     streams fold in mesh coordinates, not process ids — the process
     decomposition must be statistically invisible.  Both the 2x4 and 4x2
-    decompositions must give bit-identical counters (a v5e-16 pod is 4
-    hosts x 4 chips — the 4-process shape is the pod's host layout).
+    decompositions must give bit-identical counters (the 4-process shape
+    is a 4-host layout).
     """
     import json
     import os

@@ -205,7 +205,7 @@ def test_generalized_qc_message_decoders_bit_exact():
 def test_dvbs2_message_qc_bit_exact_spot():
     """The REAL DVB-S2 structure through decode_minsum_qc matches the
     generic decoder bit-exactly (tiny batch/T: the full structure compiles
-    slowly on CPU; throughput rows live in docs/PERF.md)."""
+    slowly on CPU)."""
     import jax.numpy as jnp
 
     from ldpcsimulation_tpu.codes.standards import dvbs2_rate12_qc

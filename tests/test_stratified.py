@@ -1,4 +1,4 @@
-"""Stratified block-permutation structure + MXU one-hot min-sum decoder.
+"""Stratified block-permutation structure + one-hot matmul min-sum decoder.
 
 Validates the structure invariants (strata, independent-set groups, H
 round-trip) and bit-exact equivalence with the generic slot-array decoder
@@ -114,8 +114,8 @@ def test_bitexact_vs_generic_802_3(ref_802_3, rng, kwargs):
 def test_f16_deep_run_no_overflow_garbage(ref_802_3):
     """Regression: dv=6 min-sum messages grow ~x7/iteration, overflowing
     f16 by T=10.  Un-saturated stores turned inf into 0*inf=NaN inside the
-    one-hot einsum and sign-inverted WHOLE frames (BER 0.11 vs 2e-4 on
-    TPU).  With saturating storage_cast the stratified and generic f16
+    one-hot einsum and sign-inverted WHOLE frames (BER 0.11 vs 2e-4).
+    With saturating storage_cast the stratified and generic f16
     paths stay bit-identical and frame-inversion-free at the deep
     operating point that originally triggered it."""
     _alist, code, sc = ref_802_3

@@ -562,9 +562,11 @@ def test_sharded_stream_per_frame_matches_batch():
     )
 
     per_frame = {}
+    pools = []
     base = 0
     for _call_i in range(2):
         pool, unc, sat0 = pool_fn(jnp.int32(base))
+        pools.append(np.asarray(pool))
         state, acc, rec = call(state, pool, unc, sat0, base)
         r = jax.device_get(rec)
         seg = rec_cap + 1
@@ -593,10 +595,15 @@ def test_sharded_stream_per_frame_matches_batch():
             assert int(g) not in per_frame
             per_frame[int(g)] = (int(it), int(er))
 
-    # ground truth: batch-decode the two gid windows
+    # ground truth: batch-decode the two gid windows, regenerated from
+    # (seed, gid) on the default device by the same compiled pool builder
+    regen = jax.jit(
+        lambda b: build_channel_pool(dec, root, b, F, QC.n, SIGMA)[0]
+    )
     ref = {}
     for w in range(2):
-        rows, _u, _s = build_channel_pool(dec, root, w * F, F, QC.n, SIGMA)
+        rows = regen(jnp.int32(w * F))
+        np.testing.assert_array_equal(np.asarray(rows), pools[w])
         res = decode_minsum_qc(QC, rows, T, early_termination=True)
         hard = np.asarray(res.hard)
         for k in range(F):

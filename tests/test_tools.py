@@ -104,6 +104,37 @@ def test_replay_channel_deterministic(tcode):
     assert (y1 != y3).any()
 
 
+@pytest.mark.parametrize("awgn_form", ["multiplicative", "additive"])
+def test_replay_channel_bit_exact_vs_simulate(tcode, awgn_form):
+    """replay_channel returns the rows simulate()'s compiled batch step
+    drew, to the last bit (an op-by-op draw rounds 1 + sigma*n twice)."""
+    from ldpcsimulation_tpu.channel import snr_to_n0
+    from ldpcsimulation_tpu.decoders.base import DecodeResult
+    from ldpcsimulation_tpu.harness.montecarlo import StopRule, simulate
+
+    rows = []
+
+    def capture(inp, key):
+        jax.debug.callback(lambda v: rows.append(np.asarray(v)), inp,
+                           ordered=True)
+        b = inp.shape[0]
+        return DecodeResult(hard=jnp.where(inp > 0, 1, -1),
+                            iterations=jnp.zeros(b, jnp.int32),
+                            satisfied=jnp.ones(b, bool))
+
+    snr, seed, batch = 1.5, 7, 16
+    simulate(tcode, capture, snr, stop=StopRule.fixed_frames(2 * batch),
+             batch_size=batch, seed=seed, awgn_form=awgn_form)
+    jax.effects_barrier()
+    assert len(rows) == 2
+    sigma = float(np.sqrt(float(snr_to_n0(snr, tcode.rate)) / 2.0))
+    for b in range(2):
+        for f in (0, 9, 15):
+            y, _ = replay_channel(tcode, seed, b, f, batch, sigma,
+                                  awgn_form=awgn_form)
+            np.testing.assert_array_equal(y, rows[b][f])
+
+
 def test_trace_gdbf_and_imaging(tcode, tmp_path, rng):
     sigma = float(snr_to_sigma(3.0, 0.5))
     yq = np.clip(1 + sigma * rng.normal(size=tcode.n), -2.5, 2.5)
@@ -574,10 +605,11 @@ def test_replay_reproduces_in_batch_gdbf_decode():
     INSIDE its original batch exactly — the decoder draws [N, B]
     perturbations per iteration, so a naive B=1 re-decode sees different
     noise (the round-2 review finding)."""
-    from ldpcsimulation_tpu.channel.awgn import awgn, bpsk, snr_to_sigma
+    from ldpcsimulation_tpu.channel.awgn import snr_to_sigma
     from ldpcsimulation_tpu.channel.quantize import saturate
     from ldpcsimulation_tpu.codes import build_code, peg
     from ldpcsimulation_tpu.decoders.gdbf import decode_gdbf, preset
+    from ldpcsimulation_tpu.harness.montecarlo import draw_channel
     from ldpcsimulation_tpu.tools.replay import (
         replay_channel,
         replay_decoder_randomness,
@@ -590,12 +622,12 @@ def test_replay_reproduces_in_batch_gdbf_decode():
     sigma = float(snr_to_sigma(3.0, 0.5))
     seed, batch_index, B = 11, 2, 8
 
-    # original batched decode, exactly as simulate() would run it
+    # original batched decode, exactly as simulate() would run it: the
+    # channel draw compiled, with sigma a constant
     root = jax.random.key(seed)
     key = jax.random.fold_in(root, batch_index)
-    kch, kdec = jax.random.split(key)
     bits = jnp.zeros((B, code.n), jnp.uint8)
-    y = awgn(kch, bpsk(bits).astype(jnp.float32), sigma)
+    y, kdec = jax.jit(draw_channel, static_argnums=(2,))(key, bits, sigma)
     yq = saturate(y, 2.5)
     batch_res = decode_gdbf(code, yq, sigma, cfg, key=kdec)
 
@@ -785,7 +817,7 @@ def test_sweep_itdist_biased_format(tmp_path):
 def test_sweep_distributed_layered(tmp_path):
     """--schedule layered now runs under --distributed (the posterior-copy
     latency that motivated the old rejection is fixed by the per-block
-    pytree state — docs/PERF.md); rows must match the single-device
+    pytree state — docs/DESIGN.md); rows must match the single-device
     layered route's layout."""
     log = tmp_path / "dl.log"
     rc = sweep_main(
